@@ -5,7 +5,8 @@ The reference compares its serial binary against 64-thread OpenMP per
 dataset, parsing 'Image Stitching:' and 'Total Execution Time (OpenMP):'
 lines, appending CSV, and drawing a grouped bar chart with auto log scale
 (benchmark_serial_parallel.py:26-105). Here the comparison is the JAX CPU
-oracle vs the TPU path, same output artifacts.
+oracle vs the GPU path, same output artifacts. Without --datasets the
+datasets are seeded 4-view pano.scenes chains (seeds 0, 1, 2).
 """
 
 import argparse
@@ -14,18 +15,19 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 STITCH_RE = re.compile(
-    r"^Total Stitching Process(?: \((?:TPU|Sharded|OpenMP)\))?: ([\d.]+) ms$",
+    r"^Total Stitching Process(?: \((?:GPU|Sharded|OpenMP)\))?: ([\d.]+) ms$",
     re.M,
 )
 
 
 def run_impl(impl, image_args):
     proc = subprocess.run(
-        [sys.executable, "-m", "pano_tpu.cli", impl, "--warmup"] + image_args,
+        [sys.executable, "-m", "pano.cli", impl, "--warmup"] + image_args,
         capture_output=True,
         text=True,
         cwd=HERE,
@@ -39,34 +41,44 @@ def run_impl(impl, image_args):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument(
-        "--datasets",
-        default="/root/reference/images/mountain,"
-        "/root/reference/images/bridge,/root/reference/images/snow",
-    )
-    ap.add_argument("--csv", default="serial_vs_tpu.csv")
-    ap.add_argument("--plot", default="serial_vs_tpu.png")
+    ap.add_argument("--datasets", default=None,
+                    help="comma list of image directories")
+    ap.add_argument("--csv", default="serial_vs_gpu.csv")
+    ap.add_argument("--plot", default="serial_vs_gpu.png")
     ap.add_argument("--repeats", type=int, default=2)
     args = ap.parse_args()
 
+    tmp = tempfile.mkdtemp(prefix="bench_sp_")
+    if args.datasets is None:
+        from pano import scenes
+
+        dirs = []
+        for seed in (0, 1, 2):
+            d = os.path.join(tmp, f"scene{seed}")
+            scenes.write_views(scenes.make_scene(4, 3117, 4156, seed), d)
+            dirs.append(d)
+    else:
+        dirs = args.datasets.split(",")
+
     rows = []
-    for ds in args.datasets.split(","):
+    for ds in dirs:
         name = os.path.basename(ds.rstrip("/"))
-        image_args = ["--dir", ds, "--out", f"/tmp/bench_{name}.jpg"]
+        out = os.path.join(tmp, f"{name}.png")
+        image_args = ["--dir", ds, "--out", out]
         serial_s = min(run_impl("serial", image_args)
                        for _ in range(args.repeats))
-        tpu_s = min(run_impl("tpu", image_args) for _ in range(args.repeats))
+        gpu_s = min(run_impl("gpu", image_args) for _ in range(args.repeats))
         rows.append(
-            {"dataset": name, "serial_s": serial_s, "tpu_s": tpu_s,
-             "speedup": serial_s / tpu_s}
+            {"dataset": name, "serial_s": serial_s, "gpu_s": gpu_s,
+             "speedup": serial_s / gpu_s}
         )
-        print(f"{name}: serial={serial_s:.2f}s tpu={tpu_s:.2f}s "
-              f"speedup={serial_s / tpu_s:.1f}x", flush=True)
+        print(f"{name}: serial={serial_s:.2f}s gpu={gpu_s:.2f}s "
+              f"speedup={serial_s / gpu_s:.1f}x", flush=True)
 
     exists = os.path.exists(args.csv)
     with open(args.csv, "a", newline="") as f:
         w = csv.DictWriter(
-            f, fieldnames=["dataset", "serial_s", "tpu_s", "speedup"]
+            f, fieldnames=["dataset", "serial_s", "gpu_s", "speedup"]
         )
         if not exists:
             w.writeheader()
@@ -84,9 +96,9 @@ def main():
         x = np.arange(len(names))
         plt.figure(figsize=(8, 5))
         plt.bar(x - 0.2, [r["serial_s"] for r in rows], 0.4, label="serial (CPU)")
-        plt.bar(x + 0.2, [r["tpu_s"] for r in rows], 0.4, label="TPU")
+        plt.bar(x + 0.2, [r["gpu_s"] for r in rows], 0.4, label="GPU")
         spread = max(r["serial_s"] for r in rows) / max(
-            1e-9, min(r["tpu_s"] for r in rows)
+            1e-9, min(r["gpu_s"] for r in rows)
         )
         if spread > 10:  # reference auto-log rule (:96-100)
             plt.yscale("log")

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Panorama quality evaluator CLI — same interface as the reference's
 evaluate_panorama.py (usage: evaluate_panorama.py <baseline> <test>
-[--threshold px]); implementation lives in pano_tpu.eval."""
+[--threshold px]); implementation lives in pano.eval."""
 
 import argparse
 import sys
 
 import cv2
 
-from pano_tpu.eval import compute_metrics, evaluate_quality
+from pano.eval import compute_metrics, evaluate_quality
 
 
 def main():

@@ -1,6 +1,6 @@
-// pano_host: native host-side runtime for pano_tpu.
+// pano_host: native host-side runtime for pano.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the native
+// The GPU compute path is JAX/XLA; this library is the native
 // equivalent of the reference's host-side C++ runtime — its image reader
 // static library (reference: src/reader/reader.cpp, the only shared C++
 // component) plus the host utilities around it. Exposed as a plain C ABI

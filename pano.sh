@@ -1,11 +1,11 @@
 #!/bin/bash
 # Unified driver CLI — same subcommand surface as the reference's pano.sh
-# (/root/reference/pano.sh:97-130): build | run | perf | eval | help.
-# Implementations map to execution configs of the one TPU-native library
-# instead of four separate binaries:
+# (reference pano.sh:97-130): build | run | perf | eval | help.
+# Implementations map to execution configs of the one JAX library instead
+# of four separate binaries:
 #   serial  -> JAX CPU oracle        (reference: serial_stitching)
-#   openmp  -> sharded multi-chip    (reference: openmp_stitching)
-#   gpu|tpu -> single-accelerator    (reference: gpu_stitching)
+#   openmp  -> sharded multi-GPU     (reference: openmp_stitching)
+#   gpu     -> single GPU            (reference: gpu_stitching)
 #   opencv  -> cv::Stitcher baseline (reference: opencv_impl)
 
 SCRIPT_DIR="$( cd "$( dirname "${BASH_SOURCE[0]}" )" &> /dev/null && pwd )"
@@ -21,7 +21,7 @@ usage() {
     echo ""
     echo "  $0 run <implementation> <image1> <image2> [<image3> ...] [options]"
     echo "      Run an implementation with image files"
-    echo "      implementation: serial, openmp (sharded), gpu/tpu, opencv"
+    echo "      implementation: serial, openmp (sharded), gpu, opencv"
     echo ""
     echo "  $0 perf <implementation> <image1> <image2> [<image3> ...] [options]"
     echo "      Run with the JAX profiler; writes <impl>_perf_report.txt and"
@@ -39,11 +39,12 @@ usage() {
     echo "  --dir <directory>      Use all images in the specified directory"
     echo "  --out <filename>       Output filename (default: result.jpg)"
     echo "  --no-gpu               Force the CPU JAX backend (reference:"
-    echo "                         gpu-less build dirs, pano.sh --no-gpu)"
+    echo "                         gpu-less build dirs, pano.sh --no-gpu);"
+    echo "                         the gpu and sharded impls then refuse to run"
     echo "  (plus pipeline flags: --mode, --blend, --bundle, --timing total|stages, --parity, --json, ...)"
     echo ""
     echo "Examples:"
-    echo "  $0 run tpu images/mountain/mountain1.jpg images/mountain/mountain2.jpg"
+    echo "  $0 run gpu images/mountain/mountain1.jpg images/mountain/mountain2.jpg"
     echo "  $0 run serial --dir images/oilseed/ --out oilseed_panorama.jpg"
     echo "  $0 eval result.jpg images/oilseed-ref.jpg"
     exit 1
@@ -57,7 +58,7 @@ COMMAND=$1
 shift
 
 # Strip driver-level options shared by run/perf (reference
-# process_common_args, /root/reference/pano.sh:60-76): --build-dir= points
+# process_common_args, reference pano.sh:60-76): --build-dir= points
 # at an alternate native build, --no-gpu forces the CPU JAX backend (the
 # analog of the reference's gpu-less build dirs / BUILD_GPU=OFF).
 process_common_args() {
@@ -85,35 +86,32 @@ process_common_args() {
 }
 
 run_env() {
-    # Environment for pano_tpu.cli invocations, honoring the driver flags.
+    # Environment for pano.cli invocations, honoring the driver flags.
     ENV_VARS=(PYTHONPATH="$SCRIPT_DIR:$PYTHONPATH")
     [ -f "$BUILD_DIR/libpano_host.so" ] && \
         ENV_VARS+=(PANO_HOST_LIB="$BUILD_DIR/libpano_host.so")
-    $NO_GPU && ENV_VARS+=(PANO_TPU_FORCE_CPU=1 JAX_PLATFORMS=cpu)
+    $NO_GPU && ENV_VARS+=(JAX_PLATFORMS=cpu)
 }
 
 case $COMMAND in
     build)
         process_common_args "$@"
-        echo "=== Building pano_tpu ==="
+        echo "=== Building pano ==="
         cd "$SCRIPT_DIR" || exit 1
         if command -v cmake >/dev/null 2>&1; then
             echo "Building native host library (native/pano_host.cpp) in $BUILD_DIR..."
             (cd native && cmake -B "$BUILD_DIR" -G Ninja . >/dev/null && \
                 cmake --build "$BUILD_DIR" >/dev/null) \
                 && echo "native: $BUILD_DIR/libpano_host.so" \
-                || echo "native build failed (Python fallback will be used)"
+                || echo "native build failed: it needs OpenCV's C++ libraries" \
+                        "(core, imgcodecs); the Python readers will be used"
         fi
         BUILD_ENV=()
-        $NO_GPU && BUILD_ENV=(env PANO_TPU_FORCE_CPU=1 JAX_PLATFORMS=cpu)
+        $NO_GPU && BUILD_ENV=(env JAX_PLATFORMS=cpu)
         "${BUILD_ENV[@]}" "$PYTHON" - <<'EOF' || { echo "Build check failed"; exit 1; }
-import os
-if os.environ.get("PANO_TPU_FORCE_CPU"):
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 import jax
-import pano_tpu
-print(f"pano_tpu {pano_tpu.__version__}")
+import pano
+print(f"pano {pano.__version__}")
 print(f"jax {jax.__version__}, backend: {jax.default_backend()}, "
       f"devices: {len(jax.devices())}")
 EOF
@@ -130,10 +128,10 @@ EOF
         process_common_args "$@"
         run_env
         echo "Running $IMPL implementation..."
-        env "${ENV_VARS[@]}" "$PYTHON" -m pano_tpu.cli "$IMPL" "${COMMON_ARGS[@]}"
+        env "${ENV_VARS[@]}" "$PYTHON" -m pano.cli "$IMPL" "${COMMON_ARGS[@]}"
         RC=$?
         # Propagate the CLI's exit code (the reference driver prints the same
-        # messages but always exits 0 — /root/reference/pano.sh:207-213 even
+        # messages but always exits 0 — reference pano.sh:207-213 even
         # reports "$?" after the if-test clobbered it; scripts and fleets
         # need the real rc).
         if [ $RC -eq 0 ]; then
@@ -153,7 +151,7 @@ EOF
         shift
         process_common_args "$@"
         run_env
-        env "${ENV_VARS[@]}" "$PYTHON" -m pano_tpu.cli serve "$IMPL" "${COMMON_ARGS[@]}"
+        env "${ENV_VARS[@]}" "$PYTHON" -m pano.cli serve "$IMPL" "${COMMON_ARGS[@]}"
         ;;
 
     perf)
@@ -165,19 +163,19 @@ EOF
         shift
         process_common_args "$@"
         run_env
-        # PANO_TPU_TRACE_DIR overrides the trace location (tests point it
+        # PANO_TRACE_DIR overrides the trace location (tests point it
         # at a tmp dir; default matches the reference's in-repo layout).
-        TRACE_DIR="${PANO_TPU_TRACE_DIR:-${SCRIPT_DIR}/${IMPL}_perf_trace}"
+        TRACE_DIR="${PANO_TRACE_DIR:-${SCRIPT_DIR}/${IMPL}_perf_trace}"
         echo "Running performance profiling on $IMPL implementation..."
-        env "${ENV_VARS[@]}" PANO_TPU_PROFILE="$TRACE_DIR" \
-            "$PYTHON" -m pano_tpu.cli "$IMPL" "${COMMON_ARGS[@]}" | tee "${IMPL}_perf_report.txt"
+        env "${ENV_VARS[@]}" PANO_PROFILE="$TRACE_DIR" \
+            "$PYTHON" -m pano.cli "$IMPL" "${COMMON_ARGS[@]}" | tee "${IMPL}_perf_report.txt"
         RC=${PIPESTATUS[0]}
         if [ $RC -eq 0 ]; then
             echo "Performance profiling completed successfully!"
             echo "Performance report saved to ${IMPL}_perf_report.txt"
             echo "Profiler trace (xplane) saved to ${TRACE_DIR}"
             # Per-op device-time table (the reference's `perf report --stdio`
-            # analog, /root/reference/pano.sh:231-235) appended to the report.
+            # analog, reference pano.sh:231-235) appended to the report.
             if "$PYTHON" "${SCRIPT_DIR}/tools/xprof_summary.py" \
                     "$TRACE_DIR" --top 25 >> "${IMPL}_perf_report.txt" 2>/dev/null; then
                 echo "Per-op device summary appended to ${IMPL}_perf_report.txt"

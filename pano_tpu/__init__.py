@@ -1,57 +1,48 @@
-"""pano_tpu — TPU-native panoramic image stitching framework.
+"""The package's former import name, kept so existing callers still work.
 
-A ground-up JAX/XLA re-design of the pipeline in
-Albus-Tan/UCB-CS267-Parallel-Panoramic-Image-Stitching (Harris corners ->
-SSD patch matching -> RANSAC homography -> perspective warp -> blending),
-built TPU-first: fixed-shape masked tensors, MXU matmuls for matching,
-vmapped hypothesis batches for RANSAC, fused warp+blend, and shard_map
-scaling over ICI meshes instead of OpenMP threads / CUDA blocks.
+Everything is in ``pano``. Importing ``<this package>.<module>`` gives the
+very module object ``pano.<module>`` (one copy, so patches and caches are
+shared), and ``python -m <this package>.cli`` runs the CLI.
 """
 
-import os
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-import jax
+from pano import *  # noqa: F401,F403
+from pano import __all__, __version__  # noqa: F401
 
-# Persistent XLA compilation cache: first-run compiles of the big warp /
-# detection graphs cost minutes on TPU; cache them across processes.
-# Opt out with PANO_TPU_NO_CACHE=1.
-if not os.environ.get("PANO_TPU_NO_CACHE"):
-    _cache_dir = os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.expanduser("~/.cache/pano_tpu_jax"),
-    )
-    try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # pragma: no cover - cache is best-effort
-        pass
 
-# Geometry math (3x3 homography chains, 8x8 DLT solves, 9x9 normal matrices)
-# needs true float32: the TPU default bf16 matmul precision loses ~1e-2
-# relative accuracy, which is fatal for homography estimation. Hot large
-# matmuls that tolerate (or are exact under) bf16 opt back in locally with
-# precision=DEFAULT (see ops/match.py — uint8-valued descriptors are exactly
-# representable in bf16, so the MXU fast path is lossless there).
-jax.config.update("jax_default_matmul_precision", "highest")
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves ``<this package>.X`` to the module ``pano.X``."""
 
-from pano_tpu.config import (
-    DEFAULT_CONFIG,
-    HarrisOptions,
-    PanoConfig,
-    RansacOptions,
-    StitchOptions,
-)
-from pano_tpu.pipeline import PairStitcher, stitch_all_images
+    def __init__(self):
+        self._specs = {}
 
-__version__ = "0.1.0"
+    @staticmethod
+    def _target(fullname):
+        return "pano" + fullname[len(__name__):]
 
-__all__ = [
-    "DEFAULT_CONFIG",
-    "HarrisOptions",
-    "PanoConfig",
-    "RansacOptions",
-    "StitchOptions",
-    "PairStitcher",
-    "stitch_all_images",
-]
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(__name__ + "."):
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
+
+    def create_module(self, spec):
+        module = importlib.import_module(self._target(spec.name))
+        self._specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # The import system stamped the alias spec on the module; give it
+        # back its own.
+        module.__spec__ = self._specs.pop(module.__name__)
+
+    def get_code(self, fullname):
+        """For ``python -m``: the code of the module the alias names."""
+        name = self._target(fullname)
+        return importlib.util.find_spec(name).loader.get_code(name)
+
+
+sys.meta_path.insert(0, _Alias())

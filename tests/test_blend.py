@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pano_tpu.ops import blend, warp
+from pano.ops import blend, warp
 
 
 def test_pyramid_roundtrip(rng):
@@ -81,8 +81,8 @@ def test_gain_compensation_restores_exposure():
     brightness step survives (the reference pipeline's behavior)."""
     import dataclasses
 
-    from pano_tpu.config import DEFAULT_CONFIG
-    from pano_tpu.pipeline import PairStitcher
+    from pano.config import DEFAULT_CONFIG
+    from pano.pipeline import PairStitcher
 
     r = np.random.default_rng(3)
     base = r.integers(40, 140, (96, 224, 3)).astype(np.uint8)

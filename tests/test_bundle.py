@@ -1,12 +1,12 @@
 """Global frame refinement (ops/bundle.py): the cv::Stitcher bundle-
-adjustment analog (reference /root/reference/src/opencv/main.cpp:59-67; the
+adjustment analog (reference src/opencv/main.cpp:59-67; the
 native reference pipelines have none). Unit tests on synthetic homography
 graphs with known ground truth + the pipeline gate."""
 
 import numpy as np
 import pytest
 
-from pano_tpu.ops import bundle
+from pano.ops import bundle
 
 
 def _h(tx=0.0, ty=0.0, s=1.0, p=0.0):
@@ -133,8 +133,8 @@ def test_pipeline_gate_modes(capsys):
     graphs; 'on' runs and prints the refinement line."""
     import dataclasses
 
-    from pano_tpu import pipeline
-    from pano_tpu.config import DEFAULT_CONFIG
+    from pano import pipeline
+    from pano.config import DEFAULT_CONFIG
 
     gt, edges, shapes = _make_graph()
     n = len(gt)
@@ -188,8 +188,8 @@ def test_sharded_auto_runs_bundle_gate(capsys, monkeypatch):
     import jax
     import numpy as np
 
-    from pano_tpu import pipeline
-    from pano_tpu.parallel import shard
+    from pano import pipeline
+    from pano.parallel import shard
 
     calls = []
     real = pipeline.maybe_refine_globals
@@ -207,7 +207,7 @@ def test_sharded_auto_runs_bundle_gate(capsys, monkeypatch):
         base[y : y + 6, x : x + 6] = r.integers(60, 255, 3)
     imgs = [base[:, 0:160], base[:, 70:230], base[:, 140:300]]
 
-    from pano_tpu.config import HarrisOptions, PanoConfig, RansacOptions
+    from pano.config import HarrisOptions, PanoConfig, RansacOptions
 
     cfg = PanoConfig(
         harris=HarrisOptions(max_keypoints=512),

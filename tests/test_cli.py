@@ -13,7 +13,7 @@ import pytest
 
 cv2 = pytest.importorskip("cv2")
 
-from pano_tpu import cli
+from pano import cli
 
 
 @pytest.fixture(scope="module")
@@ -142,17 +142,20 @@ def test_opencv_impl_three_timed_phases(scene_dir, tmp_path, capsys):
         assert "Saving panorama:" in stdout
 
 
-def test_tpu_impl_defaults_to_fused_total_timing(scene_dir, tmp_path, capsys):
-    """`run tpu` must default to the product (fused single-sync) path: only
-    Image Stitching / total lines, no per-stage sync lines (VERDICT r2 #1).
-    The timing-line format itself stays reference-exact."""
+def test_gpu_impl_defaults_to_fused_total_timing(
+    scene_dir, tmp_path, capsys, cpu_as_accelerator
+):
+    """`run gpu` must default to the product (fused single-sync) path: only
+    Image Stitching / total lines, no per-stage sync lines. The timing-line
+    format itself stays reference-exact, with the reference's "(GPU)" tag
+    (src/gpu/main.cpp:335)."""
     import re
 
     out = str(tmp_path / "pano.jpg")
-    rc = cli.run("tpu", ["--dir", scene_dir, "--out", out])
+    rc = cli.run("gpu", ["--dir", scene_dir, "--out", out])
     assert rc == 0
     stdout = capsys.readouterr().out
-    assert re.search(r"^Image Stitching[^:]*: \d+\.\d{3} ms$", stdout, re.M)
+    assert re.search(r"^Image Stitching \(GPU\): \d+\.\d{3} ms$", stdout, re.M)
     assert re.search(
         r"^Total Stitching Process[^:]*: \d+\.\d{3} ms$", stdout, re.M
     )
@@ -161,13 +164,15 @@ def test_tpu_impl_defaults_to_fused_total_timing(scene_dir, tmp_path, capsys):
     assert "RANSAC Homography Estimation" not in stdout
 
 
-def test_timing_stages_flag_restores_stage_lines(scene_dir, tmp_path, capsys):
+def test_timing_stages_flag_restores_stage_lines(
+    scene_dir, tmp_path, capsys, cpu_as_accelerator
+):
     """--timing stages keeps the reference's per-stage stdout contract on
     the accelerator path (benchmark parsers grep these exact labels)."""
     import re
 
     out = str(tmp_path / "pano.jpg")
-    rc = cli.run("tpu", ["--dir", scene_dir, "--out", out,
+    rc = cli.run("gpu", ["--dir", scene_dir, "--out", out,
                          "--timing", "stages"])
     assert rc == 0
     stdout = capsys.readouterr().out
@@ -180,10 +185,12 @@ def test_timing_stages_flag_restores_stage_lines(scene_dir, tmp_path, capsys):
         assert re.search(rf"^{label}[^:]*: \d+\.\d{{3}} ms$", stdout, re.M), label
 
 
-def test_parity_preset_defaults_to_stage_timing(scene_dir, tmp_path, capsys):
-    """--parity implies the reference's per-stage timing even on tpu."""
+def test_parity_preset_defaults_to_stage_timing(
+    scene_dir, tmp_path, capsys, cpu_as_accelerator
+):
+    """--parity implies the reference's per-stage timing even on gpu."""
     out = str(tmp_path / "pano.jpg")
-    rc = cli.run("tpu", ["--dir", scene_dir, "--out", out, "--parity",
+    rc = cli.run("gpu", ["--dir", scene_dir, "--out", out, "--parity",
                          "--kpts", "256", "--iters", "128"])
     assert rc == 0
     assert "Harris Corner Detection" in capsys.readouterr().out
@@ -191,8 +198,8 @@ def test_parity_preset_defaults_to_stage_timing(scene_dir, tmp_path, capsys):
 
 def test_serve_decode_ahead_prefetches_next_job(scene_dir, tmp_path, monkeypatch):
     """With the next job line already queued, serve must decode its images
-    on the worker thread and hand them to run() preloaded (VERDICT r3
-    missing #3: the codec never overlapped device work)."""
+    on the worker thread and hand them to run() preloaded, so the codec
+    overlaps the current job's device work."""
     import io
 
     a1 = os.path.join(scene_dir, "a1.png")
@@ -224,7 +231,7 @@ def test_read_images_preloaded_cache():
     (including cached None = unreadable, same warning/skip semantics)."""
     import numpy as np
 
-    from pano_tpu.io import read_images_from_args
+    from pano.io import read_images_from_args
 
     img = np.full((8, 8, 3), 7, np.uint8)
     res = read_images_from_args(
@@ -248,7 +255,7 @@ def test_staging_decoder_cache_hit_invalidate_evict(scene_dir, tmp_path,
     import shutil
     import time
 
-    import pano_tpu.io as pio
+    import pano.io as pio
 
     a1 = os.path.join(scene_dir, "a1.png")
     b2 = str(tmp_path / "b2.png")
@@ -292,7 +299,9 @@ def test_staging_decoder_cache_hit_invalidate_evict(scene_dir, tmp_path,
     assert decoded.count(missing) == 2
 
 
-def test_run_accepts_device_resident_preloaded_images(scene_dir, tmp_path):
+def test_run_accepts_device_resident_preloaded_images(
+    scene_dir, tmp_path, cpu_as_accelerator
+):
     """Push-ahead contract: serve's worker may stage preloaded images on the
     DEVICE (jax arrays), and run() must produce the same panorama as with
     host arrays — the pipeline's to_dev helpers pass device-resident inputs
@@ -307,16 +316,16 @@ def test_run_accepts_device_resident_preloaded_images(scene_dir, tmp_path):
     out_h = str(tmp_path / "host.jpg")
     out_d = str(tmp_path / "dev.jpg")
     base = ["--kpts", "256", "--iters", "128"]
-    assert cli.run("tpu", [a1, a2, "--out", out_h] + base,
+    assert cli.run("gpu", [a1, a2, "--out", out_h] + base,
                    _preloaded=host) == 0
-    assert cli.run("tpu", [a1, a2, "--out", out_d] + base,
+    assert cli.run("gpu", [a1, a2, "--out", out_d] + base,
                    _preloaded=dev) == 0
     np.testing.assert_array_equal(cv2.imread(out_h), cv2.imread(out_d))
 
 
 def test_pano_sh_run_propagates_failure_exit_code(tmp_path):
     """The shell driver must exit nonzero when the CLI fails (the reference's
-    pano.sh swallows the code — /root/reference/pano.sh:207-213; ours
+    pano.sh swallows the code — reference pano.sh:207-213; ours
     propagates it so scripts and fleets can branch on it)."""
     import subprocess
 
@@ -370,20 +379,19 @@ def test_serve_loop_runs_jobs_and_reports_status(scene_dir, tmp_path, capsys):
 
 
 def test_pano_sh_perf_smoke_traces_and_reports(scene_dir, tmp_path):
-    """`pano.sh perf` end-to-end on CPU (VERDICT r4 weak #8: the wrapper
-    path — trace dir creation, report writing, PANO_TPU_PROFILE plumbing,
-    xprof per-op table append — had no test; only the summarizer was
-    unit-tested). Reference analog: `pano.sh perf` wraps the run in
+    """`pano.sh perf` end-to-end on CPU: trace dir creation, report
+    writing, PANO_PROFILE plumbing, xprof per-op table append. Reference
+    analog: `pano.sh perf` wraps the run in
     `perf record` and appends `perf report --stdio`
-    (/root/reference/pano.sh:216-243)."""
+    (reference pano.sh:216-243)."""
     import subprocess
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     trace_dir = str(tmp_path / "trace")
     out = str(tmp_path / "pano.jpg")
-    env = dict(os.environ, PANO_TPU_TRACE_DIR=trace_dir)
-    # Keep the child's compile fast and hermetic: CPU platform, no
-    # accelerator plugin (--no-gpu sets PANO_TPU_FORCE_CPU + JAX_PLATFORMS).
+    env = dict(os.environ, PANO_TRACE_DIR=trace_dir)
+    # Keep the child's compile fast and hermetic: CPU platform
+    # (--no-gpu sets JAX_PLATFORMS=cpu).
     r = subprocess.run(
         [
             "bash", os.path.join(repo, "pano.sh"), "perf", "serial",
@@ -401,7 +409,7 @@ def test_pano_sh_perf_smoke_traces_and_reports(scene_dir, tmp_path):
     assert "Total Stitching Process" in text
     # The xprof per-op table was appended (host-plane fallback on CPU).
     assert "=== plane:" in text, text[-800:]
-    # The xplane trace landed where PANO_TPU_TRACE_DIR pointed.
+    # The xplane trace landed where PANO_TRACE_DIR pointed.
     assert os.path.isdir(trace_dir)
     assert any(
         f.endswith(".xplane.pb")
@@ -413,8 +421,8 @@ def test_pano_sh_perf_smoke_traces_and_reports(scene_dir, tmp_path):
 def test_serve_encode_behind_defers_write_off_main_thread(
     scene_dir, tmp_path, capsys, monkeypatch
 ):
-    """Encode-behind (VERDICT r4 weak #7): with the next job queued, the
-    output JPEG encode must run on the worker thread (overlapping the next
+    """Encode-behind: with the next job queued, the output image encode
+    must run on the worker thread (overlapping the next
     job) and the status line must still mean 'file on disk' — it prints
     only after the write completed, in job order."""
     import io
@@ -494,3 +502,35 @@ def test_serve_encode_behind_reports_failed_write(scene_dir, tmp_path, capsys):
     assert f"Job 2 ok {good_out}:" in stdout
     assert not os.path.exists(bad_out)
     assert os.path.exists(good_out)
+
+
+@pytest.mark.parametrize(
+    "impl", sorted({"gpu", "sharded"} | set(cli.IMPL_ALIASES))
+)
+def test_gpu_impl_refuses_to_run_without_a_gpu(scene_dir, tmp_path, impl):
+    """On a machine where JAX sees no GPU the accelerator impls and their
+    aliases exit non-zero naming the missing GPU; nothing falls back to
+    the CPU."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    a1 = os.path.join(scene_dir, "a1.png")
+    a2 = os.path.join(scene_dir, "a2.png")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = tmp_path / f"{impl}.png"
+    r = subprocess.run(
+        [sys.executable, "-m", "pano.cli", impl, a1, a2, "--out", str(out)],
+        capture_output=True, text=True, timeout=300, cwd=repo, env=env,
+    )
+    assert r.returncode != 0, (impl, r.stdout, r.stderr)
+    assert "no GPU found" in r.stderr, (impl, r.stderr)
+    assert not out.exists()
+
+
+def test_serve_gpu_refuses_to_start_without_a_gpu(capsys):
+    """serve's push-ahead asks pano.device for its GPU before it reads any
+    job."""
+    rc = cli.main(["serve", "gpu"])
+    assert rc == -1
+    assert "no GPU found" in capsys.readouterr().err

@@ -3,22 +3,12 @@ reference's convolveSequential (src/serial/main.cpp:96-116)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from pano_tpu.ops import conv
+from pano import oracles
+from pano.ops import conv
 
-
-def conv_oracle(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """Direct transcription of the reference loop semantics in numpy."""
-    ksize = kernel.shape[0]
-    k = ksize // 2
-    out = np.zeros_like(img)
-    h, w = img.shape
-    for y in range(k, h - k):
-        for x in range(k, w - k):
-            out[y, x] = np.sum(
-                img[y - k : y + k + 1, x - k : x + k + 1] * kernel
-            )
-    return out
+conv_oracle = oracles.conv_valid_zero_border
 
 
 def test_sobel_kernels_values():
@@ -40,15 +30,17 @@ def test_gaussian_kernel_normalized_and_symmetric():
     assert g[2, 2] == g.max()
 
 
-def test_conv_valid_zero_border_matches_oracle(rng):
+@pytest.mark.parametrize("size,sigma", [(5, 1.0), (3, 0.8), (7, 1.5)])
+def test_conv_valid_zero_border_matches_oracle(rng, size, sigma):
     img = rng.normal(size=(16, 20)).astype(np.float32)
-    kernel = np.asarray(conv.gaussian_kernel(5, 1.0))
+    kernel = np.asarray(conv.gaussian_kernel(size, sigma))
+    k = size // 2
     got = np.asarray(conv.conv2d_valid_zero_border(jnp.asarray(img), jnp.asarray(kernel)))
     want = conv_oracle(img.astype(np.float64), kernel.astype(np.float64))
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-3)
-    # Border of width 2 must be exactly zero.
-    assert np.all(got[:2] == 0) and np.all(got[-2:] == 0)
-    assert np.all(got[:, :2] == 0) and np.all(got[:, -2:] == 0)
+    # Border of width k must be exactly zero.
+    assert np.all(got[:k] == 0) and np.all(got[-k:] == 0)
+    assert np.all(got[:, :k] == 0) and np.all(got[:, -k:] == 0)
 
 
 def test_conv_is_correlation_not_flipped(rng):

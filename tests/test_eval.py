@@ -1,9 +1,9 @@
-"""Tests for the quality-evaluation subsystem (pano_tpu.eval)."""
+"""Tests for the quality-evaluation subsystem (pano.eval)."""
 
 import numpy as np
 import pytest
 
-from pano_tpu import eval as peval
+from pano import eval as peval
 
 
 def test_ssim_identical_images_is_one(rng):
@@ -126,18 +126,17 @@ def test_seam_caveat_fires_on_rerooted_panorama():
     """Integration: the SAME panorama re-rendered in a different projective
     root frame aligns near-perfectly (high inliers) but its overlap boundary
     ring cuts through content, so the seam metric reads large — exactly the
-    grader blind spot the caveat flags (BASELINE.md round-3 auto-mode notes).
+    grader blind spot the caveat flags.
     """
-    import os
-
     import cv2
 
-    path = "/root/reference/images/oilseed/oilseed1.jpg"
-    if not os.path.exists(path):
-        pytest.skip("bundled reference scenes absent")
-    # A real photo: ORB matches it cleanly (synthetic circle fields are too
-    # self-similar to clear the 0.70 inlier gate this test needs).
-    img = cv2.resize(cv2.imread(path), (320, 240))
+    from pano import scenes
+
+    # A seeded scene view: ORB matches its block texture cleanly (synthetic
+    # circle fields are too self-similar to clear the 0.70 inlier gate this
+    # test needs).
+    img = scenes.make_scene(1, 240, 320, seed=0).views[0]
+    cv2.setRNGSeed(0)
     # A mild projective re-rooting (what a different MST anchor produces).
     h_reroot = np.array(
         [[0.975, 0.03, 6.0], [-0.025, 1.015, 4.5], [1.0e-4, -0.6e-4, 1.0]]
@@ -151,7 +150,7 @@ def test_seam_caveat_fires_on_rerooted_panorama():
 
 # --- SSIM cross-validation against an independent brute-force oracle ------
 # The environment has no skimage (the reference's SSIM source,
-# evaluate_panorama.py:47), so pano_tpu.eval re-implements Wang et al. 2004
+# evaluate_panorama.py:47), so pano.eval re-implements Wang et al. 2004
 # with skimage's defaults. This test validates the optimized cumsum-filter
 # implementation against a direct nested-loop computation of the same
 # definition (7x7 uniform window, unbiased covariance, K1/K2 defaults).

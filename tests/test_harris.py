@@ -4,57 +4,26 @@ seqHarrisCornerDetectorDetect (src/serial/main.cpp:119-185)."""
 import numpy as np
 import jax.numpy as jnp
 import cv2
+import pytest
 
-from pano_tpu.config import HarrisOptions
-from pano_tpu.ops import harris
+from pano import oracles
+from pano.config import HarrisOptions
+from pano.ops import harris
 
 
 def harris_oracle(img_bgr: np.ndarray, opts: HarrisOptions):
-    """Reference-semantics Harris in numpy/f64: returns (keypoint set, resp).
+    """Reference-semantics Harris from the float64 numpy oracles
+    (pano.oracles): returns (keypoint set, response).
 
-    Uses the library's own gray conversion (validated against cv2 separately)
-    so this oracle isolates the conv/response/NMS math.
+    Uses the library's own gray conversion (validated against cv2
+    separately) so this oracle isolates the conv/response/NMS math.
     """
     gray = np.asarray(
         harris.bgr_to_gray_f32(jnp.asarray(img_bgr)), np.float64
     )
-
-    def conv(a, k):
-        kk = k.shape[0] // 2
-        out = np.zeros_like(a)
-        h, w = a.shape
-        for y in range(kk, h - kk):
-            for x in range(kk, w - kk):
-                out[y, x] = np.sum(a[y - kk:y + kk + 1, x - kk:x + kk + 1] * k)
-        return out
-
-    sx = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], np.float64)
-    sy = np.array([[-1, -2, -1], [0, 0, 0], [1, 2, 1]], np.float64)
-    half = 2
-    xs = np.arange(5) - half
-    g = np.exp(-(xs[:, None] ** 2 + xs[None, :] ** 2) / 2.0)
-    g /= g.sum()
-
-    gx = conv(gray, sx)
-    gy = conv(gray, sy)
-    sxx = conv(gx * gx, g)
-    syy = conv(gy * gy, g)
-    sxy = conv(gx * gy, g)
-    resp = sxx * syy - sxy * sxy - opts.k * (sxx + syy) ** 2
-
-    kps = set()
-    hl = opts.nms_neighborhood // 2
-    h, w = gray.shape
-    for y in range(hl, h - hl):
-        for x in range(hl, w - hl):
-            r = resp[y, x]
-            if r <= opts.nms_thresh:
-                continue
-            nb = resp[y - hl:y + hl + 1, x - hl:x + hl + 1].copy()
-            nb[hl, hl] = -np.inf
-            if r > nb.max():
-                kps.add((x, y))
-    return kps, resp
+    resp = oracles.harris_response(gray, opts.k)
+    xy, _ = oracles.harris_peaks(resp, opts.nms_thresh, opts.nms_neighborhood)
+    return {(int(x), int(y)) for x, y in xy}, resp
 
 
 def test_gray_matches_cv2(rng):
@@ -68,8 +37,9 @@ def test_gray_matches_cv2(rng):
     assert (diff > 0).mean() < 0.01
 
 
-def test_response_matches_oracle(rng):
-    img = rng.integers(0, 256, (24, 28, 3), dtype=np.uint8)
+@pytest.mark.parametrize("shape", [(24, 28), (37, 53), (64, 17)])
+def test_response_matches_oracle(rng, shape):
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
     opts = HarrisOptions()
     gray = harris.bgr_to_gray_f32(jnp.asarray(img))
     got = np.asarray(harris.harris_response(gray, opts.k))
@@ -78,8 +48,9 @@ def test_response_matches_oracle(rng):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e3)
 
 
-def test_detect_matches_oracle_keypoint_set(rng):
-    img = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+@pytest.mark.parametrize("shape", [(48, 64), (61, 45)])
+def test_detect_matches_oracle_keypoint_set(rng, shape):
+    img = rng.integers(0, 256, shape + (3,), dtype=np.uint8)
     # exact selection: this test checks NMS semantics, not selection policy
     opts = HarrisOptions(max_keypoints=512, topk_method="exact")
     kps = harris.harris_detect(jnp.asarray(img), opts)

@@ -5,9 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pano_tpu.config import HarrisOptions
-from pano_tpu.ops import match
-from pano_tpu.ops.harris import KeyPoints
+from pano import oracles
+from pano.config import HarrisOptions
+from pano.ops import match
+from pano.ops.harris import KeyPoints
 
 
 def make_kps(coords, cap):
@@ -23,27 +24,18 @@ def make_kps(coords, cap):
     )
 
 
-def ssd_oracle(img1, img2, kps1, kps2, patch=5):
-    """Reference matching loop in numpy (uint64 SSD)."""
-    b = patch // 2
-    out = {}
-    h1, w1 = img1.shape[:2]
-    h2, w2 = img2.shape[:2]
-    for i, (x1, y1) in enumerate(kps1):
-        if x1 < b or y1 < b or x1 + b >= w1 or y1 + b >= h1:
-            continue
-        best, bj = np.iinfo(np.uint64).max, -1
-        p1 = img1[y1 - b:y1 + b + 1, x1 - b:x1 + b + 1].astype(np.int64)
-        for j, (x2, y2) in enumerate(kps2):
-            if x2 < b or y2 < b or x2 + b >= w2 or y2 + b >= h2:
-                continue
-            p2 = img2[y2 - b:y2 + b + 1, x2 - b:x2 + b + 1].astype(np.int64)
-            ssd = np.sum((p1 - p2) ** 2)
-            if ssd < best:
-                best, bj = ssd, j
-        if bj >= 0 and best < 1e8:
-            out[i] = (bj, best)
-    return out
+def ssd_oracle(img1, img2, kps1, kps2, opts):
+    """The reference matching loop's result from the numpy oracles
+    (pano.oracles): {query index: (train index, SSD)} for valid matches."""
+    xy1 = np.asarray(kps1.xy)
+    xy2 = np.asarray(kps2.xy)
+    d1, v1 = oracles.patch_descriptors(
+        img1, xy1, np.asarray(kps1.valid), opts.patch_size)
+    d2, v2 = oracles.patch_descriptors(
+        img2, xy2, np.asarray(kps2.valid), opts.patch_size)
+    idx, ssd, ok = oracles.match_ssd(d1, v1, d2, v2, opts.max_ssd_thresh,
+                                     opts.ratio_thresh, opts.cross_check)
+    return {int(i): (int(idx[i]), float(ssd[i])) for i in np.nonzero(ok)[0]}
 
 
 def test_match_exact_vs_oracle(rng):
@@ -61,7 +53,7 @@ def test_match_exact_vs_oracle(rng):
     m = match.match_keypoints(
         k1, k2, jnp.asarray(img1), jnp.asarray(img2), opts
     )
-    want = ssd_oracle(img1, img2, c1, c2)
+    want = ssd_oracle(img1, img2, k1, k2, opts)
 
     got = {
         i: (int(t), float(s))
@@ -74,7 +66,7 @@ def test_match_exact_vs_oracle(rng):
     for i in want:
         assert got[i][0] == want[i][0]
         # f32 SSD is integer-exact in this range.
-        assert got[i][1] == float(want[i][1])
+        assert got[i][1] == want[i][1]
 
 
 def test_planted_identical_patch_matches_with_zero_ssd(rng):
@@ -166,10 +158,6 @@ def _random_descs(rng, kq, kt, d=75):
     dt[19] = dt[5]                # duplicate train rows -> argmin ties
     vq = rng.random(kq) > 0.15
     vt = rng.random(kt) > 0.15
-    # Pad descriptor dim to the MXU lane multiple like the real extractor.
-    dpad = ((d + 127) // 128) * 128
-    dq = np.pad(dq, ((0, 0), (0, dpad - d)))
-    dt = np.pad(dt, ((0, 0), (0, dpad - d)))
     return (
         jnp.asarray(dq), jnp.asarray(vq), jnp.asarray(dt), jnp.asarray(vt)
     )
@@ -228,27 +216,37 @@ def test_streaming_auto_dispatch_large_k():
     assert bool(np.asarray(m.valid).all())
 
 
-def test_block_size_demotion_warns_when_kernel_eligible(monkeypatch):
-    """An explicit block_size on TPU demotes an otherwise Pallas-eligible
-    match to the ~10x-slower XLA streaming path — that demotion must warn
-    (the foot-gun is a user 'tuning' tiles into a slower path)."""
-    import warnings
+@pytest.mark.parametrize("ratio,cross", [(0.0, False), (0.85, True),
+                                         (0.85, False), (0.0, True)])
+@pytest.mark.parametrize("block", [0, 32])
+def test_matcher_matches_float64_oracle(rng, block, ratio, cross):
+    """Dense (block 0) and streamed matchers against the float64 numpy
+    matcher: index, SSD and validity bit-exact, ties to the lowest index
+    included (u8-valued descriptors make every SSD an exact integer)."""
+    dq, vq, dt, vt = _random_descs(rng, 64, 200)
+    m = match.match_descriptors(
+        dq, vq, dt, vt, 3.0e6, ratio_thresh=ratio, cross_check=cross,
+        block_size=block,
+    )
+    idx, ssd, ok = oracles.match_ssd(
+        np.asarray(dq), np.asarray(vq), np.asarray(dt), np.asarray(vt),
+        3.0e6, ratio, cross,
+    )
+    np.testing.assert_array_equal(np.asarray(m.valid), ok)
+    np.testing.assert_array_equal(np.asarray(m.train_idx), idx)
+    np.testing.assert_array_equal(np.asarray(m.ssd, np.float64), ssd)
 
-    import jax
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    k, d = 512, 128
-    kt = 2048  # > _STREAM_TILE so the kernel would have been eligible
-    r = np.random.default_rng(3)
-    dq = jnp.asarray(r.integers(0, 256, (k, d)).astype(np.float32))
-    dt = jnp.asarray(r.integers(0, 256, (kt, d)).astype(np.float32))
-    vq = jnp.ones((k,), bool)
-    vt = jnp.ones((kt,), bool)
-    with pytest.warns(UserWarning, match="Pallas MXU kernel was eligible"):
-        m = match.match_descriptors(dq, vq, dt, vt, 1e18, block_size=1024)
-    assert m.train_idx.shape == (k,)
-    # block_size=0 (auto) must stay silent on the XLA paths.
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        match.match_descriptors(dq, vq, dt, vt, 1e18, block_size=1024)
+@pytest.mark.parametrize("patch", [3, 5, 7])
+def test_patch_descriptors_match_oracle(rng, patch):
+    """The packed flat gather against the numpy patch cut, bit for bit,
+    with keypoints on every border and padded (invalid) slots."""
+    img = rng.integers(0, 256, (30, 41, 3), dtype=np.uint8)
+    coords = [(0, 0), (40, 29), (3, 3), (37, 26), (20, 1), (1, 15),
+              (10, 10), (25, 20), (patch // 2, patch // 2)]
+    kps = make_kps(coords, 12)
+    desc, ok = match.extract_patch_descriptors(jnp.asarray(img), kps, patch)
+    want, want_ok = oracles.patch_descriptors(
+        img, np.asarray(kps.xy), np.asarray(kps.valid), patch)
+    np.testing.assert_array_equal(np.asarray(ok), want_ok)
+    np.testing.assert_array_equal(np.asarray(desc, np.float64), want)

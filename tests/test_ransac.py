@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from pano_tpu.config import RansacOptions
-from pano_tpu.ops import ransac
+from pano.config import RansacOptions
+from pano.ops import ransac
 
 
 def apply_h(h, pts):
